@@ -11,10 +11,9 @@ Usage: python baseline/run_baseline.py [K]
 
 --live runs only the named configs and prints ONE JSON dict to stdout
 (no file write): bench.py uses it to re-measure the baseline in the SAME
-wall-clock window as the TPU numbers.  Measured 2026-08-19: the same
-binary swings 3.0-8.8M evals/s on ising_c6 across hours on this
-virtualized host (CPU share varies), so a stale measured.json can skew
-vs_baseline ~2x either way; the live same-window number cannot.
+wall-clock window as the device numbers.  On a shared virtualized host
+the same binary's rate swings with the CPU share it gets, so a stale
+measured.json can skew vs_baseline; the live same-window number cannot.
 """
 
 import json
@@ -36,7 +35,7 @@ CONFIGS = [
     ("mvn_d6", ["mvn", "6", "65", "20", "1"], "mvn_d6"),
     ("coscoeff_d6", ["coscoeff", "6", "65", "20", "1"], "coscoeff_d6"),
     ("ising_c6", ["ising", "C", "6", "64", "24", "1"], "ising_c6"),
-    # long chains: the TPU jacobi engine's home turf (bench
+    # long chains: the device jacobi engine's home turf (bench
     # ising_c256_jacobi / ising_c1024_rb; per-eval cost grows ~linearly
     # with d here while the batched device sweep is ~d-independent)
     ("ising_c256", ["ising", "C", "256", "17", "10", "1"], "ising_c256"),

@@ -3,7 +3,7 @@
 //
 // Purpose (BASELINE.md / SURVEY.md §6): the reference publishes no
 // throughput numbers and this image has no Fortran compiler, so the
-// baseline the TPU framework is compared against must be MEASURED by an
+// baseline the JAX framework is compared against must be MEASURED by an
 // equivalent native implementation on the same host.  This program
 // re-implements the reference algorithm step by step — greedy DMRG cross
 // with lottery-seeded rook pivoting (dmrgg.f90:410-582), the two-threshold

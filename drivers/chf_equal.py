@@ -31,7 +31,7 @@ def main():
     grids = np.meshgrid(*[np.linspace(-1.0, 1.0, g)] * d, indexing="ij")
     omega = np.stack([x.ravel() for x in grids], axis=1)
 
-    re, im = gaussian_chf_parts(omega, mu, sigma)  # real-pair math (TPU-safe)
+    re, im = gaussian_chf_parts(omega, mu, sigma)  # real-pair math
     ours = np.asarray(re) + 1j * np.asarray(im)
     cpp = native.gaussian_chf_native(omega, mu, sigma)
     err = np.abs(ours - cpp).max()

@@ -3,7 +3,7 @@
 
 Crosses an MVN correlation family (corr linspace 0.2..0.7, LANES lanes,
 each mass = 1) in ONE fused device program via cross_batch — the
-TPU-native upgrade of launching the reference binary once per `par`
+device upgrade of launching the reference binary once per `par`
 value (fun(m, ind, n, par), dmrgg.f90:18).  With COMPARE=1, also runs
 each lane through the single-run engine and reports the family speedup
 (on a latency-bound device the L-lane batch costs close to ONE run)."""

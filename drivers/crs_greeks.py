@@ -9,7 +9,7 @@ with jax.vmap at fixed skeleton — no extra pivot hunts, one batched
 integrand re-evaluation per parameter point.  The reference can only
 re-run whole crosses per parameter value (its `par` argument,
 dmrgg.f90:18, is evaluate-only); frozen-skeleton AD is a capability the
-TPU/JAX re-design adds.  The printed sanity column is a central finite
+JAX re-design adds.  The printed sanity column is a central finite
 difference of the skeleton value (should match grad to ~1e-6)."""
 
 import sys

@@ -3,7 +3,7 @@
 `crs_ising_dd.py INDEX N RANK1 RANK2`.
 
 The mp-tier pipeline (the reference's test_mpf_ising role, README.md:52)
-re-architected for TPU: both crosses run in the fast f64 device engine; the
+re-architected for the device: both crosses run in the fast f64 device engine; the
 second one crosses the DEFECT A_dd - TT1 evaluated in device double-double
 arithmetic; quadratures contract in __float128.  Measured: C_6 to 16.0
 digits at ranks (32,48), 17.0 at (40,64) — past any pure-f64 pipeline."""

@@ -25,7 +25,6 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import os
 
-os.environ.setdefault("TTCROSS_EXPORT_CACHE", "0")
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax

@@ -33,7 +33,6 @@ def main():
     # complex contraction path with complex unit weights (dtt -> ztt
     # promotion + ztt_quad, test_crs_mvn_complex.f90:154-160); the
     # promotion happens inside contract as real/imag pair arithmetic
-    # (TPU has no complex dtype)
     w_complex = [prob.quad_weights.astype(np.complex128) * (1.0 + 0.0j)] * d
     val = complex(tt.contract(res.tt, w_complex))
     print(f"computed value: {val.real:.40e} {val.imag:.40e}")

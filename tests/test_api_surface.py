@@ -43,7 +43,7 @@ SURFACE = {
     "ttcross_tpu.ops.dense": [
         "svd_chopped", "matinv", "qr_ort", "gram_schmidt", "orto_block",
         "aca", "greedy_cur", "transpose2d", "transpose3d",
-        "table_lookup", "onehot_rows", "row_lookup",
+        "table_lookup", "row_lookup", "batched_row_lookup",
     ],
     "ttcross_tpu.ops.lu": [
         "GrowingLU", "lu_append", "solve_cols", "solve_rows",
@@ -54,7 +54,6 @@ SURFACE = {
         "dd_exp", "dd_log", "dd_contract",
     ],
     "ttcross_tpu.ops.sampling": ["weighted_lottery"],
-    "ttcross_tpu.ops.pallas_kernels": ["score_residual_argmax"],
     "ttcross_tpu.apps": [
         "make_ising", "make_ising_dd", "make_ising_qd", "make_ising_mp",
         "ising_truth",

@@ -1,4 +1,4 @@
-"""Defect-corrected high-precision cross (cross/defect.py): the TPU-first
+"""Defect-corrected high-precision cross (cross/defect.py): the device-first
 replacement for running the greedy engine in arbitrary precision."""
 
 from decimal import Decimal, getcontext

@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 
 from ttcross_tpu.ops.dense import (
     aca,
@@ -75,3 +76,42 @@ def test_transpose3d(rng):
     a = rng.standard_normal((2, 3, 4))
     assert np.asarray(transpose3d(5, a)).shape == (3, 4, 2)
     np.testing.assert_array_equal(np.asarray(transpose3d(1, a)), a)
+
+
+@pytest.mark.parametrize("case", ["table", "rows", "cols", "batched", "batched_1d"])
+def test_lookups_match_numpy_indexing(rng, case):
+    """The gather lookups agree with numpy indexing, and every index
+    outside [0, n) (negative or past the end) reads 0."""
+    import jax
+
+    from ttcross_tpu.ops.dense import batched_row_lookup, row_lookup, table_lookup
+
+    def ref(a, ind, axis=0):
+        n = a.shape[axis]
+        ok = (ind >= 0) & (ind < n)
+        got = np.take(a, np.clip(ind, 0, n - 1), axis=axis)
+        shape = [1] * got.ndim
+        shape[axis] = ind.size
+        return np.where(ok.reshape(shape) if got.ndim > 1 else ok, got, 0.0)
+
+    if case == "table":
+        tab = rng.standard_normal(17)
+        ind = rng.integers(-3, 20, (64, 5))
+        got = jax.jit(table_lookup)(tab, ind)
+        want = np.where((ind >= 0) & (ind < 17), tab[np.clip(ind, 0, 16)], 0.0)
+    elif case in ("rows", "cols"):
+        axis = 0 if case == "rows" else 1
+        mat = rng.standard_normal((12, 7) if axis == 0 else (7, 12))
+        lin = rng.integers(-2, 14, 30)
+        got = jax.jit(row_lookup, static_argnums=2)(mat, lin, axis)
+        want = ref(mat, lin, axis)
+        want = want if axis == 0 else want.T
+    else:
+        tabs = rng.standard_normal((3, 10, 4))
+        lin = rng.integers(-1, 12, (3, 6) if case == "batched" else (3,))
+        got = jax.jit(batched_row_lookup)(tabs, lin)
+        want = np.stack([ref(tabs[b], np.atleast_1d(lin[b])) for b in range(3)])
+        if case == "batched_1d":
+            want = want[:, 0]
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.asarray(got), want)

@@ -202,30 +202,6 @@ def test_oversample_beats_greedy_ceiling():
     assert over.errors[-1] < plain.errors[-1]
 
 
-def test_export_cache_roundtrip(rng, tmp_path, monkeypatch):
-    """The jax.export artifact cache must produce bit-identical results and
-    actually write/reuse artifacts (conftest disables it globally because
-    CPU lowering is cheap; this test opts back in)."""
-    import ttcross_tpu.cross.engine as eng
-
-    _, dense, fun = make_low_rank(rng, 3, 7, (1, 2, 2, 1))
-    baseline = cross(fun, [7] * 3, max_rank=4, pivoting=1, accuracy=1e-12)
-
-    monkeypatch.setenv("TTCROSS_EXPORT_CACHE", "1")
-    monkeypatch.setenv("TTCROSS_EXPORT_CACHE_DIR", str(tmp_path))
-    # fresh engine identity -> fresh export path
-    eng._EXPORT_WRAP.clear()
-    cached = cross(fun, [7] * 3, max_rank=4, pivoting=1, accuracy=1e-12)
-    assert len(list(tmp_path.glob("*.bin"))) >= 1
-    np.testing.assert_array_equal(np.asarray(tt.full(cached.tt)),
-                                  np.asarray(tt.full(baseline.tt)))
-    # second pass hits the artifact
-    eng._EXPORT_WRAP.clear()
-    again = cross(fun, [7] * 3, max_rank=4, pivoting=1, accuracy=1e-12)
-    np.testing.assert_array_equal(np.asarray(tt.full(again.tt)),
-                                  np.asarray(tt.full(baseline.tt)))
-
-
 @pytest.mark.parametrize("kind,digits_min", [("D", 12),
                          pytest.param("E", 10.5, marks=pytest.mark.slow)])
 def test_ising_de_cross(kind, digits_min):
@@ -403,3 +379,41 @@ def test_ising_de_rescaling_d10():
         res2 = cross(prob.fun, [prob.n] * prob.d, oversample=4, **args)
         # self-consistency: a rescaling bug is orders-of-magnitude off
         assert abs(1.0 - res2.values[-1] / v1) < 1e-4
+
+
+@pytest.mark.parametrize("p", [0, 1, 2])
+def test_full_pivot_matches_bruteforce_argmax(rng, p):
+    """pivoting=-1 picks the superblock entry of largest residual
+    |A - colf[p] rowf[p+1]| over the active block, as a numpy brute
+    force over every (i, j, k, q) does (dmrgg.f90:341-408)."""
+    from ttcross_tpu.config import precision_thresholds
+    from ttcross_tpu.cross import make_engine
+    from ttcross_tpu.cross.chains import pivot_index_sets
+    from ttcross_tpu.cross.engine import CrossConfig
+
+    d, n, R = 4, 5, 5
+    _, dense, fun = make_low_rank(rng, d, n, (1, 4, 4, 4, 1))
+    st = cross(fun, [n] * d, max_rank=R, pivoting=-1, max_sweeps=1,
+               return_state=True).state
+    se, sp = precision_thresholds()
+    kit = make_engine(fun, CrossConfig(d=d, n=(n,) * d, N=n, R=R, piv=-1,
+                                       small_element=se, small_pivot=sp))
+    _, tape_i, tape_f = jax.jit(lambda s: kit.visit_bond(s, p, True))(st)
+
+    rk = np.asarray(st.rk)
+    I, J = pivot_index_sets(st.vip, st.rk)
+    lefts = I[p - 1] if p > 0 else [()]
+    rights = J[p + 1] if p + 1 < d - 1 else [()]
+    colf = np.asarray(st.colf[p])[..., : rk[p + 1]]
+    rowf = np.asarray(st.rowf[p + 1])[: rk[p + 1]]
+    best, arg = -1.0, None
+    for i, left in enumerate(lefts[: rk[p]]):
+        for q, right in enumerate(rights[: rk[p + 2]]):
+            for j in range(n):
+                for k in range(n):
+                    r = dense[left + (j, k) + right] - colf[i, j] @ rowf[:, k, q]
+                    if abs(r) > best:
+                        best, arg, resid = abs(r), (i, j, k, q), r
+    assert int(tape_i[0]) == 1, "the pivot must be accepted"
+    assert tuple(int(x) for x in tape_i[1:]) == arg
+    np.testing.assert_allclose(float(tape_f[-1]), resid, rtol=1e-10)

@@ -429,34 +429,32 @@ def test_pcontract_chf_family(rng):
     np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
-def test_parallel_export_cache_multidevice(rng, tmp_path, monkeypatch):
-    """Multi-device export cache (round 4): the shard_map'd run exports,
-    serializes, and is re-served from disk with mesh-resident inputs —
-    the second launch reuses the artifact bit-identically (previously
-    1-device meshes only; PARITY.md note)."""
-    import ttcross_tpu.tt as tt
-    from ttcross_tpu.parallel import cross_parallel
+def test_parallel_runner_built_once_per_run_parameters(rng):
+    """Repeated cross_parallel calls on one mesh reuse the jitted
+    distributed run (a fresh jit per call retraced and recompiled every
+    cross), and the reused run reproduces the first result."""
+    from ttcross_tpu.config import precision_thresholds
+    from ttcross_tpu.cross.engine import CrossConfig
+    from ttcross_tpu.parallel.engine import get_parallel_engine
     from ttcross_tpu.parallel.mesh import bond_mesh
 
-    monkeypatch.setenv("TTCROSS_EXPORT_CACHE", "1")
-    monkeypatch.setenv("TTCROSS_EXPORT_CACHE_DIR", str(tmp_path))
-    ranks = (1, 2, 3, 3, 2, 1)
-    cores = [rng.standard_normal((ranks[i], 6, ranks[i + 1]))
-             for i in range(5)]
+    cores = [rng.standard_normal((r0, 5, r1))
+             for r0, r1 in zip((1, 2, 2, 2), (2, 2, 2, 1))]
     T = tt.from_cores(cores)
-    dense = np.asarray(tt.full(T))
 
     def fun(ind):
         return tt.gather(T, ind)
 
     mesh = bond_mesh(jax.devices()[:2])
-    r1 = cross_parallel(fun, [6] * 5, max_rank=4, pivoting=1,
+    se, sp = precision_thresholds()
+    cfg = CrossConfig(d=4, n=(5,) * 4, N=5, R=3, piv=1, small_element=se,
+                      small_pivot=sp)
+    _, make_run_fn = get_parallel_engine(fun, cfg, mesh)
+    assert make_run_fn(2, True, 1e-12) is make_run_fn(2, True, 1e-12)
+    assert make_run_fn(2, True, 1e-12) is not make_run_fn(3, True, 1e-12)
+    r1 = cross_parallel(fun, [5] * 4, max_rank=3, pivoting=1,
                         accuracy=1e-12, mesh=mesh)
-    arts = list(tmp_path.glob("*.bin"))
-    assert arts, "multi-device run must write an export artifact"
-    r2 = cross_parallel(fun, [6] * 5, max_rank=4, pivoting=1,
+    r2 = cross_parallel(fun, [5] * 4, max_rank=3, pivoting=1,
                         accuracy=1e-12, mesh=mesh)
-    assert list(tmp_path.glob("*.bin")) == arts   # reused, not re-exported
     np.testing.assert_array_equal(np.asarray(tt.full(r1.tt)),
                                   np.asarray(tt.full(r2.tt)))
-    assert np.abs(np.asarray(tt.full(r2.tt)) - dense).max() < 1e-11

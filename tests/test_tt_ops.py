@@ -125,7 +125,7 @@ def test_contract_complex_weights_device_pair(rng):
 
 
 def test_contract_complex_cores_host(rng):
-    """Complex-cored trains keep the host path (no complex dtype on TPU)."""
+    """Complex-cored trains keep the host path."""
     cores = [rng.standard_normal((r, n, r2)) + 1j * rng.standard_normal((r, n, r2))
              for (r, n, r2) in [(1, 3, 2), (2, 4, 1)]]
     t = tt.from_cores([np.asarray(c) for c in cores])

@@ -1,6 +1,6 @@
-"""ttcross-tpu: TPU-native parallel DMRG-greedy TT-cross interpolation.
+"""ttcross-tpu: parallel DMRG-greedy TT-cross interpolation in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 Fortran+MPI library aukeschaap/ttcross (Dolgov & Savostyanov parallel cross
 interpolation, arXiv:1903.11554): approximate a black-box d-dimensional
 tensor in tensor-train format from O(d n r^2) adaptively chosen samples, then

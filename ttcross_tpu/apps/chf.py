@@ -28,7 +28,7 @@ __all__ = ["basket_chf", "basket_chf_pair", "basket_pdf", "basket_pdf_pair"]
 def basket_chf_pair(t: TT, nodes, weights, n_terms: int = 32,
                     lower: float = 0.0, upper: float = 300.0):
     """(Re phi_k, Im phi_k) of the basket-sum CHF — the fully TRACED core
-    of basket_chf (real/imag pair arithmetic end to end, TPU-safe and
+    of basket_chf (real/imag pair arithmetic end to end, and
     jax.grad-able: differentiable Greeks of CHF/COS quantities flow
     through a skeleton_tt_fn-built train)."""
     d = t.d
@@ -58,7 +58,7 @@ def basket_chf(t: TT, nodes, weights, n_terms: int = 32,
 
     All K contractions run as ONE batched chain: the per-mode weight matrix
     W (K, n) replaces the reference's K sequential ztt_quad collectives.
-    Complex arithmetic is explicit real/imag pair math (TPU-safe)."""
+    Complex arithmetic is explicit real/imag pair math."""
     vr, vi = basket_chf_pair(t, nodes, weights, n_terms, lower, upper)
     return np.asarray(vr) + 1j * np.asarray(vi)
 

@@ -39,8 +39,8 @@ def s_vectors(d: int) -> np.ndarray:
 
 def gaussian_chf_parts(omega, mu, sigma):
     """Real/imag parts of phi(omega) = exp(i omega.mu - omega^T Sigma omega/2)
-    as (magnitude * cos, magnitude * sin) — TPU-safe pair arithmetic
-    (complex128 is unsupported on TPU hardware)."""
+    as (magnitude * cos, magnitude * sin) — real pair arithmetic (a form
+    shaped for the first target, without complex128)."""
     omega = jnp.asarray(omega)
     mu = jnp.asarray(mu)
     sigma = jnp.asarray(sigma)
@@ -76,7 +76,7 @@ class CosCoefficients:
         with t_j = pi s_j (ind_j) / (b - a)  (0-based ind; the reference's
         ind_j - 1 with 1-based indices, coefficients.f90:52-57).
 
-        Computed in real pair arithmetic (TPU has no complex128):
+        Computed in real pair arithmetic:
         Re[e^{i(t.mu - a sum t)}] e^{-q/2} = e^{-q/2} cos(t.mu - a sum t)."""
         ind = jnp.asarray(ind)
         sv = jnp.asarray(s_vectors(self.d), dtype=jnp.float64)  # (S, d)
@@ -122,7 +122,7 @@ def cos_approximate(xs, phis, lower: float, upper: float, n_terms: int | None = 
         raise ValueError("n_terms exceeds the number of CHF values")
     k = np.arange(K, dtype=np.float64)
     omega = k * np.pi / (upper - lower)
-    # Re[phi e^{-i omega a}] in real pair arithmetic (TPU has no complex128)
+    # Re[phi e^{-i omega a}] in real pair arithmetic
     coeff = 2.0 / (upper - lower) * (phis[:K].real * np.cos(omega * lower)
                                      + phis[:K].imag * np.sin(omega * lower))
     coeff[0] *= 0.5

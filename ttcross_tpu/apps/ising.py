@@ -1,6 +1,6 @@
 """Ising susceptibility integrands C_m / D_m / E_m.
 
-TPU-native redesign of dfunc_ising_discr (test_crs_ising.f90:176-218).
+Batched redesign of dfunc_ising_discr (test_crs_ising.f90:176-218).
 The reference evaluates one multi-index at a time with O(d^2) nested scalar
 loops; here the integrand is batched over a (B, d) index matrix and the
 pairwise product structure is vectorized:
@@ -8,7 +8,7 @@ pairwise product structure is vectorized:
   with node values x_1..x_d and prefix products P_0..P_d (P_0 = 1,
   P_j = x_1...x_j), the nested quantity u_ij = prod_{t=i+1..j} x_t equals
   P_j / P_i, so the a-term prod_{i<j} ((u_ij-1)/(u_ij+1))^2 becomes a masked
-  pairwise reduction over the (d+1)x(d+1) prefix outer ratio -- pure VPU
+  pairwise reduction over the (d+1)x(d+1) prefix outer ratio -- pure vector
   work; the b-term 1/(v w) uses prefix and suffix cumulative sums of
   products.
 
@@ -36,11 +36,9 @@ _KIND_ID = {"C": 1, "D": 2, "E": 3}
 
 
 def _cumprod(x, axis: int = 1):
-    """Cumulative product for integrand chains.  jnp.cumprod lowers to a
-    growing-window reduce-window on TPU — O(d^2) work per row, measured
-    as ~1.8 s of the 4.9 s C_256 jacobi device run (trace 2026-08-19,
-    eight 186 ms reduce-windows per sweep pair at (B~43k, d=255)).
-    lax.associative_scan is the log2(d)-pass O(d log d) form: same
+    """Cumulative product for integrand chains.  jnp.cumprod may lower to
+    a growing-window reduce-window — O(d^2) work per row (it did on the
+    first target); lax.associative_scan is the log2(d)-pass O(d log d) form: same
     product values up to rounding order."""
     if x.shape[axis] <= 32:
         return jnp.cumprod(x, axis=axis)
@@ -55,8 +53,8 @@ def ising_integrand(ind, nodes, weights, kind: str):
     kid = _KIND_ID[kind.upper()]
     from ..ops.dense import table_lookup
 
-    x = table_lookup(nodes, ind)     # (B, d); exact MXU one-hot lookup
-    w = table_lookup(weights, ind)   # (TPU row-gathers dominate otherwise)
+    x = table_lookup(nodes, ind)     # (B, d)
+    w = table_lookup(weights, ind)
     B, d = x.shape
     one = jnp.ones((B, 1), dtype=x.dtype)
 
@@ -142,11 +140,7 @@ def ising_integrand_np(ind, nodes, weights, kind: str) -> np.ndarray:
     """Host-numpy twin of ising_integrand: ind (B, d) int -> (B,) f64.
 
     Exists for accurate host re-evaluation at a frozen skeleton
-    (cross/skeleton.py::reevaluate_host): this TPU's emulated f64
-    multiply is not correctly rounded, so on-device integrand values
-    carry ~7e-15 median relative error (measured against the mp
-    integrand, 2026-08-18) and cap a device-built train near 12.7
-    digits on C_6; host f64 evaluation is ~1e-16."""
+    (cross/skeleton.py::reevaluate_host)."""
     kid = _KIND_ID[kind.upper()]
     ind = np.asarray(ind)
     x = np.asarray(nodes)[ind]       # (B, d)

@@ -72,7 +72,7 @@ class MvnProblem:
     def fun(self, ind):
         from ..ops.dense import table_lookup
 
-        x = table_lookup(self.nodes, ind)   # exact MXU one-hot lookup
+        x = table_lookup(self.nodes, ind)
         return self.density.pdf(x)
 
 

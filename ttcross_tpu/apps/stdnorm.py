@@ -30,7 +30,7 @@ class StdnormProblem:
     def fun(self, ind):
         from ..ops.dense import table_lookup
 
-        x = table_lookup(self.nodes, ind)     # (B, d); exact MXU one-hot lookup
+        x = table_lookup(self.nodes, ind)     # (B, d)
         return jnp.exp(-jnp.sum(x * x, axis=1))
 
 

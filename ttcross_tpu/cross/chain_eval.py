@@ -21,8 +21,8 @@ suffixes), so a sweep's candidate evaluations collapse to
     3. per candidate: 3 merges + a finalize                  O(1)  (!)
 
 instead of O(d) table lookups + scan per candidate.  This is the TT
-analogue of cached interface tensors, rendered TPU-native: steps 1-2
-are dense VPU work, step 3 is broadcastable elementwise math over the
+analogue of cached interface tensors, rendered for the device: steps 1-2
+are dense vector work, step 3 is broadcastable elementwise math over the
 candidate batch.  At C_256 (d = 255) it removes ~99% of the hunt's
 integrand FLOPs; the evaluated VALUES agree with the full integrand to
 rounding-order (the merge tree is a different association of the same
@@ -201,8 +201,7 @@ def interface_states_scan(spec: ChainSpec, vip, d: int):
 
 def _take_state(S, idx):
     """Gather states along the link axis: leaves (mc, R) + idx (mc, B)
-    -> leaves (mc, B).  Dense-grid gather reads (the fast path on TPU;
-    only scatters are element-serial, BENCH_NOTES 2026-08-19)."""
+    -> leaves (mc, B)."""
     return jax.tree_util.tree_map(
         lambda a: jnp.take_along_axis(a, idx, axis=1), S)
 
@@ -219,9 +218,9 @@ class ChainEvaluator:
     take_along_axis on the packed array instead of K per-leaf gathers,
     and the prefix scan is a log2(d)-level Hillis-Steele recursive
     doubling (half the levels of associative_scan's up+down sweeps).
-    The sweep is kernel-LAUNCH bound on this TPU (~1300 fused kernels =
-    ~22 ms device at C_256, measured 2026-08-20; per-kernel work is a
-    few µs of VPU math), so op count — not FLOPs — is the target.
+    The sweep is kernel-LAUNCH bound (~1300 fused kernels at C_256 in
+    the CPU lowering; per-kernel work is tiny), so op count — not FLOPs
+    — is the target.
     States returned by states()/states_from_vip() are opaque to callers
     and only valid as inputs to this evaluator's eval_* methods."""
 

@@ -99,23 +99,11 @@ def _compose_chain_ops(u, v):
     the per-bond recurrence of advance_left/advance_right ASSOCIATIVE and
     unlocks a log2(d)-depth associative_scan in place of the d-step serial
     lax.scan (the jacobi sweep's latency wall at C_256: four 254-step
-    scans per sweep).  The row permutations run as exact one-hot f32 MXU
-    matmuls on accelerators (indices < 2^24; gathers are element-serial
-    on this TPU) and native take_along_axis on CPU."""
+    scans per sweep)."""
     g_u, w_u, m_u = u
     g_v, w_v, m_v = v
-    from ..ops.dense import _mxu_backend
-
-    if _mxu_backend():
-        R = g_u.shape[-1]
-        oh = (g_v[..., None] == jnp.arange(R)).astype(jnp.float32)
-        g = jnp.einsum("...ts,...s->...t", oh,
-                       g_u.astype(jnp.float32)).astype(g_u.dtype)
-        wg = jnp.einsum("...ts,...sd->...td", oh,
-                        w_u.astype(jnp.float32)).astype(w_u.dtype)
-    else:
-        g = jnp.take_along_axis(g_u, g_v, axis=-1)
-        wg = jnp.take_along_axis(w_u, g_v[..., None], axis=-2)
+    g = jnp.take_along_axis(g_u, g_v, axis=-1)
+    wg = jnp.take_along_axis(w_u, g_v[..., None], axis=-2)
     w = jnp.where(m_v[..., None, :], w_v, wg)
     return g, w, m_u | m_v
 

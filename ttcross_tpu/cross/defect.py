@@ -1,6 +1,6 @@
 """Defect-corrected high-precision cross integration.
 
-The TPU-first answer to the reference's multiprecision CROSS (mptt_dmrgg,
+The device-first answer to the reference's multiprecision CROSS (mptt_dmrgg,
 dmrggmp.f90): instead of running the whole greedy engine in software
 arbitrary precision, exploit that pivot SELECTION only ever needs the
 resolution of the current residual scale:
@@ -119,13 +119,11 @@ class _DefectQD:
 
     The qd evaluation is fenced off behind jax.pure_callback and runs in
     raw NUMPY: a qd_mul is ~60 error-free transforms, so as a traced
-    graph the integrand is ~10^4 elementwise ops — XLA CPU took ~1 min
-    to compile it and ~ms-per-op to dispatch it, while numpy ufuncs run
-    the identical IEEE-f64 arithmetic at C speed with no compile at all
-    (measured ~50x faster end-to-end; ops/qd.py dispatches on the array
-    type).  The callback rides the host platform — which is where full
-    qd precision lives anyway (correctly-rounded f64 multiply; the TPU's
-    emulated f64 breaks Dekker two_prod)."""
+    graph the integrand is ~10^4 elementwise ops — slow for XLA CPU to
+    compile and to dispatch, while numpy ufuncs run the identical
+    IEEE-f64 arithmetic at C speed with no compile at all (ops/qd.py
+    dispatches on the array type).  The callback rides the host
+    platform."""
 
     class _NpTT:
         """Numpy-core view of a TT (qd_gather_tt runs its backend off

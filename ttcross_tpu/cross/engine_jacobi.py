@@ -23,6 +23,11 @@ import jax.numpy as jnp
 from .chains import all_left_tables, all_right_tables, assemble_indices
 from .state import CrossState
 
+# f32 contractions state their precision: on GPUs XLA may otherwise run
+# them in TF32 (~11 significant bits), which would round lottery weights
+# and residual scores
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = ["build_jacobi"]
 
 
@@ -121,17 +126,15 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
         # ---------------- batched lottery (all live bonds, one call)
         smask = iR[None, :] < rk_b[:, None]
         vb = win(st.vip)
-        # one-hot any-reductions, not scatter-max .at[].max (XLA scatter
-        # is ~8 ms/op on this TPU; the compare+any is dense VPU work)
+        # one-hot any-reductions, not scatter-max .at[].max (a form shaped
+        # for the first target, whose scatters were slow; the compare+any is dense)
         linRN = jnp.arange(R * N)
         used_col = jnp.any(((vb[:, :, 0] * N + vb[:, :, 1])[:, :, None]
                             == linRN[None, None, :]) & smask[:, :, None], 1)
         used_row = jnp.any(((vb[:, :, 3] * N + vb[:, :, 2])[:, :, None]
                             == linRN[None, None, :]) & smask[:, :, None], 1)
-        # lottery CDFs in f32 via a triangular-ones MXU matmul: jnp.cumsum
-        # on (mc, R*N) f64 lowers to a SERIAL while loop on this TPU (one
-        # dynamic-update-slice + compare per element — measured 2026-08-21
-        # as ~13 ms of the ~20 ms C_256 rb sweep, 4 cumsums x 170 steps).
+        # lottery CDFs in f32 via a triangular-ones matmul (shaped for the
+        # first target, whose cumsum was a serial loop).
         # The CDF only drives candidate SAMPLING, so f32 sums (exact for
         # the 0/1 masks up to 2^24) are more than enough.
         f32 = jnp.float32
@@ -142,8 +145,8 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
             wcol = wcol * jnp.tile(jnp.abs(win(lw)), (1, R)).astype(f32)
             wrow = wrow * jnp.tile(jnp.abs(win(lw, 1)), (1, R)).astype(f32)
         tri = jnp.triu(jnp.ones((R * N, R * N), f32))   # [j <= i]
-        cdf_c = wcol @ tri
-        cdf_r = wrow @ tri
+        cdf_c = jnp.matmul(wcol, tri, precision=_HIGHEST)
+        cdf_r = jnp.matmul(wrow, tri, precision=_HIGHEST)
         below = f32(1.0 - 2.0 ** -20)
         tot_c = cdf_c[:, -1:]
         tot_r = cdf_r[:, -1:]
@@ -172,10 +175,8 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
         neval = st.neval + jnp.sum(
             jnp.where(live, nlot_act, 0)).astype(jnp.int64)
         padded = st.padded + mc * NLOT
-        # factor rows via exact batched one-hot MXU lookups (the
-        # sequential path's row_lookup, vmapped over bonds): per-bond
-        # take_along_axis row-gathers were the jacobi mode's small-d
-        # bottleneck (gathers run element-serial on this TPU)
+        # factor rows via batched gathers (the sequential path's
+        # row_lookup, vmapped over bonds)
         from ..ops.dense import batched_row_lookup
 
         cf = batched_row_lookup(colf_flat, lin_c)
@@ -213,9 +214,9 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
 
         def unified_pass_all(c, is_col: bool):
             # Residual SCORING (the argmax over the fiber residual) runs
-            # in f32: f64 is emulated on this platform's f32 hardware, so
-            # the (mc, R, N)-sized score einsum is ~4-8x dearer in f64 —
-            # and pivot SELECTION only needs to rank candidates (the
+            # in f32 (built for the first target, whose f64 was emulated: the
+            # (mc, R, N)-sized score einsum was dearer in f64) — pivot
+            # SELECTION only needs to rank candidates (the
             # reference's idamax makes no precision promise either).  The
             # selected pivot VALUE is recomputed exactly in f64 below (one
             # masked dot per bond) — acceptance thresholds, factor borders
@@ -235,7 +236,8 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
                 u = batched_row_lookup(
                     rowf_perm, c["qq"] * N + c["kk"]) * rmask_b  # (mc, R)
                 bcol_s = acol.astype(f32) - jnp.einsum(
-                    "pinr,pr->pin", colf_b.astype(f32), u.astype(f32))
+                    "pinr,pr->pin", colf_b.astype(f32), u.astype(f32),
+                    precision=_HIGHEST)
                 sc = jnp.where(cmask, jnp.abs(bcol_s), -1.0)
                 i2 = jnp.argmax(jnp.max(sc, axis=2), axis=1)
                 j2 = jnp.argmax(jnp.take_along_axis(
@@ -267,7 +269,8 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
                 cw = batched_row_lookup(
                     colf_flat, c["ii"] * N + c["jj"]) * rmask_b
                 brow_s = arow.astype(f32) - jnp.einsum(
-                    "pr,prnq->pnq", cw.astype(f32), rowf_b.astype(f32))
+                    "pr,prnq->pnq", cw.astype(f32), rowf_b.astype(f32),
+                    precision=_HIGHEST)
                 sr = jnp.where(rmask2, jnp.abs(brow_s), -1.0)
                 k2 = jnp.argmax(jnp.max(sr, axis=2), axis=1)
                 q2 = jnp.argmax(jnp.take_along_axis(
@@ -356,11 +359,9 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
 
         # ---------------- batched acceptance + vectorized replay
         # NOTE: every accept-slot write below is a one-hot masked SELECT
-        # (where over a slot mask), not a scatter .at[].set — XLA scatter
-        # runs ~8 ms per op on this TPU regardless of size (measured
-        # 2026-08-19: 43k-element scatter 8 ms vs <1 ms as a one-hot
-        # where), and this function carries ~10 of them (was ~49 ms of
-        # the ~75 ms C_256 jacobi sweep).
+        # (where over a slot mask), not a scatter .at[].set — a form
+        # shaped for the first target, whose scatters were slow at any size; this
+        # function carries ~10 of them.
         upd = ((jnp.abs(pivot) > cfg.small_element * amax)
                & (jnp.abs(pivot) > cfg.small_pivot * st.pivotmax_prev)
                & (rk_b < R))
@@ -382,17 +383,13 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
         lu_c = jnp.where(ohs_u[:, :, None], c_new[:, None, :], st.lu_c)
         lu_u = jnp.where(ohs_u[:, :, None], u_new[:, None, :], st.lu_u)
         lu_d = jnp.where(ohs_u, pivot[:, None], st.lu_d)
-        # NOTE the FACTOR-CRITICAL contractions here stay einsum even
-        # though a batched f64 dot_general lowers to a serial while loop
-        # on this platform (~1.3 ms each at C_256): the dot_general
-        # lowering's pair products are ~3x more accurate than a
-        # broadcast-multiply + reduce-sum (1.2e-10 vs 3.2e-10 max rel
-        # under cancellation, measured 2026-08-21 — the emulated
-        # multiply, not the reduce tree, carries the error: a Neumaier
-        # compensated sum measured no better), and that noise feeds the
-        # growing factors, degrading PIVOT QUALITY by ~0.5-1 digit at
-        # C_256 r10-12 (measured 12.3 -> 10.9).  Telemetry-only paths
-        # (value chain, finalize) use the fast sum form instead.
+        # NOTE the FACTOR-CRITICAL contractions here stay einsum: on the
+        # accelerator this engine was first built for, the dot_general lowering's
+        # pair products were more accurate than a broadcast-multiply +
+        # reduce-sum under its emulated f64, and that noise fed the
+        # growing factors and degraded pivot quality.  Telemetry-only
+        # paths (value chain, finalize) use the sum form instead
+        # (ROADMAP Design 4 asks whether one form suffices).
         new_row = jnp.where(one_hot_s, 1.0,
                             -jnp.einsum("pr,prs->ps", c_new, st.itl))
         itl = jnp.where(ohs_u[:, :, None], new_row[:, None, :], st.itl)
@@ -539,9 +536,9 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_arr, _decode_div,
 
         Single-phase jacobi hunts every bond against start-of-sweep
         factors, so a bond's factor rows for its neighbor's new pivot are
-        one sweep stale and need the corner repair — the measured ~1.3
-        digit quality gap vs the sequential visit order at equal rank
-        (BENCH_r04 C_256: 11.06 vs 12.4).  With alternating parities a
+        one sweep stale and need the corner repair — a ~1 digit quality
+        gap vs the sequential visit order at equal rank (C_256 at rank
+        10).  With alternating parities a
         bond's NEIGHBORS are always in the other phase: their accepts land
         before its hunt, the hunt's padded fibers re-evaluate the new
         rows fresh (lmiss/rmiss never fire within a phase), and the pivot

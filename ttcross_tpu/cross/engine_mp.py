@@ -5,7 +5,7 @@ Full-precision mirror of the reference's multiprecision tier
 bordered triangular inverses, the per-sweep quadrature — is an mpmath mpf
 at a configurable working precision (default 120 decimal digits, the
 reference's compile-time `mpipl`, mpfunf.f90:63).  Like the reference's
-MPFUN tier this path is host/CPU-bound; the TPU tiers (f64 engine,
+MPFUN tier this path is host/CPU-bound; the device tiers (f64 engine,
 double-double engine, defect correction) cover the accelerated regimes.
 
 Reference-fidelity notes:

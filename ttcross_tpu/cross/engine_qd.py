@@ -14,8 +14,7 @@ correct digits at LOW rank — where the f64-engine defect pipeline
 train's defect is noise-like.
 
 Like the reference's MPFUN tier (and cross_mp) this path is host/CPU
-only: full qd precision needs a correctly-rounded f64 multiply, which
-this TPU's emulated f64 lacks (see ops/qd.py).  The tier ladder is
+only (see ops/qd.py).  The tier ladder is
   f64 engine (device)   ~13 digits
   dd engine  (device)   ~31 digits     cross/engine_dd.py
   qd engine  (host)     ~60 digits     THIS MODULE

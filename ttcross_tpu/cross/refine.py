@@ -2,7 +2,7 @@
 
 The role of the reference's multiprecision tier (mptt_dmrgg + mptt_quad,
 dmrggmp.f90): compute the cross interpolant and its quadrature beyond f64.
-TPU-first split: pivot SELECTION stays in the f64 device engine (selection
+Split: pivot SELECTION stays in the f64 device engine (selection
 needs resolution, not precision), then the cross DATA is re-evaluated at the
 selected pivot chains in __float128 (native host kernels) and the
 interpolant quadrature

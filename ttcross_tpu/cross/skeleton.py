@@ -52,24 +52,17 @@ __all__ = ["Skeleton", "extract_skeleton", "skeleton_value_fn",
 def derive_host_fun(fun: Callable) -> Callable:
     """Auto-derive the host-accurate integrand twin from the traced one.
 
-    ``cross(host_reeval=True)`` needs an integrand whose f64 is correctly
-    rounded; on this TPU the emulated f64 multiply carries ~7e-15 median
-    relative error (BENCH_NOTES 2026-08-18).  Rather than requiring a
-    hand-written numpy twin (``fun_np=``), run the SAME traced integrand
-    on the CPU x64 backend — true IEEE double — by jitting it under
-    ``jax.default_device(cpu)``.  The ``lookup_backend("cpu")`` override
-    makes the CPU executable use native gathers instead of the one-hot
-    MXU path (``jax.default_backend()`` still reports the TPU during the
-    CPU trace).  Returns ``fun_np(ind (B, d) int numpy) -> (B,) f64
-    numpy``, the protocol of reevaluate_host."""
-    from ..ops.dense import lookup_backend
-
+    ``cross(host_reeval=True)`` needs a host integrand ``fun_np``.  Rather
+    than requiring a hand-written numpy twin, run the SAME traced
+    integrand on the CPU x64 backend by jitting it under
+    ``jax.default_device(cpu)``.  Returns ``fun_np(ind (B, d) int numpy)
+    -> (B,) f64 numpy``, the protocol of reevaluate_host."""
     cpu = jax.devices("cpu")[0]
     jitted = jax.jit(fun)
 
     def fun_np(ind):
         ind = np.asarray(ind, np.int32)
-        with jax.default_device(cpu), lookup_backend("cpu"):
+        with jax.default_device(cpu):
             out = jitted(ind)
         return np.asarray(out, np.float64)
 
@@ -148,13 +141,11 @@ def extract_skeleton(state_or_result, n: Sequence[int]) -> Skeleton:
 
 @jax.custom_jvp
 def _solve_right(ahat: jax.Array, m: jax.Array) -> jax.Array:
-    """m @ ahat^{-1} via QR of ahat.T — LU-based jnp.linalg.solve does not
-    lower for f64 on this TPU platform (XLA LuDecomposition is F32-only,
-    same constraint cross/maxvol.py works around; confirmed live on the
-    v5e compile helper).  The derivative is a custom rule (below), NOT
-    differentiation through the QR factors: the factor-JVP amplifies
-    round-off ~cond(A)^2 on the near-singular late-rank pivot
-    submatrices, measured 1e-2 absolute grad error on the MVN Greek
+    """m @ ahat^{-1} via QR of ahat.T (a form shaped for the first target,
+    whose LU was f32-only, as in cross/maxvol.py).  The derivative is a
+    custom rule (below), NOT differentiation through the QR factors: the
+    factor-JVP amplifies round-off ~cond(A)^2 on the near-singular
+    late-rank pivot submatrices, measured 1e-2 absolute grad error on the MVN Greek
     where the solve-rule JVP matches finite differences to 1e-7."""
     q, r = jnp.linalg.qr(ahat.T)
     return solve_triangular(r, q.T @ m.T, lower=False).T
@@ -230,11 +221,9 @@ def reevaluate_host(fun_np: Callable, skel: Skeleton) -> list:
     The refine-tier split (cross/refine.py) applied to the plain-f64
     tier: pivot SELECTION runs in the device engine (selection needs
     resolution, not precision), then the cross DATA is re-evaluated on
-    host where f64 is correctly rounded.  On this TPU the emulated f64
-    multiply gives integrand values ~7e-15 median relative error, which
-    caps a device-built C_6 train at ~12.7 digits; re-evaluating the
-    same ~165k skeleton samples with a host-numpy integrand restores
-    14.0+ (measured 2026-08-18, BENCH_NOTES).
+    host.  It was built for a device whose emulated f64 multiply capped
+    a device-built train; on IEEE f64 devices it changes the digits
+    little (ROADMAP Design 6).
 
     fun_np: ``fun_np(ind (B, d) int numpy) -> (B,) f64 numpy`` host
     integrand (e.g. ``IsingProblem.fun_np``).  Returns plain numpy cores

@@ -1,10 +1,10 @@
 """Cross-engine state: statically padded, jit-carried.
 
 The reference grows every per-bond array with deallocate/reallocate as ranks
-increase (dmrgg.f90:602-757).  On TPU, shapes must be static under jit, so
-the engine allocates everything at the padded rank R = maxrank once and
+increase (dmrgg.f90:602-757).  Under jit shapes must be static, so the
+engine allocates everything at the padded rank R = maxrank once and
 carries an active-rank vector; all updates are masked writes.  This is the
-central TPU-first design decision (SURVEY.md §7).
+central design decision of the port (SURVEY.md §7).
 """
 
 from __future__ import annotations

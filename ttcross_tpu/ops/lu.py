@@ -1,6 +1,6 @@
 """Growing bordered-LU representation of the cross pivot-submatrix inverse.
 
-TPU-native redesign of the reference's compact growing-LU machinery
+Device redesign of the reference's compact growing-LU machinery
 (d2_lug/d2_lual/d2_luar, lr.f90:98-154; incremental append in
 dmrgg.f90:649-660).  The reference packs, per bond, a flat g(r*r) buffer and
 applies it with sequential dgemv loops; here the same data lives in three
@@ -18,7 +18,7 @@ with the defining recurrences of the rank-(s+1) CUR update
 Equivalently  C_raw = Cf @ T  and  R_raw = L @ Rf  where T is upper
 triangular with T[t,s] = u_s[t], T[s,s] = delta_s and L is unit lower
 triangular with L[s,t] = c_s[t].  Applying the inverse therefore becomes a
-*batched triangular solve* (MXU/XLA native) instead of a rank-by-rank dgemv
+*batched triangular solve* (XLA native) instead of a rank-by-rank dgemv
 chain — both the full application (dtt_lua finalization, dmrgg.f90:1169-1258)
 and the incremental `from=r+1` single-column update (dmrgg.f90:701-702).
 

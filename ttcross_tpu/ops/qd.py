@@ -18,9 +18,9 @@ partial terms with a few error-free two_sum SWEEPS over the term list —
 each sweep preserves the exact sum and drains mass upward, so the
 leading four limbs converge to the non-overlapping representation.
 Branch-free, elementwise, vectorizes on any backend.  Full precision
-needs a correctly-rounded f64 multiply, so (like dd) the qd tier is
-exact on CPU and degraded on this TPU's emulated f64 — the defect
-pipeline runs its qd integrand on the host platform.
+needs a correctly-rounded f64 multiply (IEEE f64 on the CPU and on
+NVIDIA GPUs; an emulated f64 is not); the defect pipeline runs its
+qd integrand on the host platform.
 """
 
 from __future__ import annotations
@@ -56,9 +56,8 @@ def _ns(x):
     """Array namespace dispatch: every qd op runs on EITHER backend —
     jax for traced/device use, raw numpy for the host tier.  The numpy
     path matters: the defect pipeline's integrand does ~10^4 elementwise
-    ops per evaluation, which as an XLA CPU graph costs ~1 min of
-    compile and ~100 us/op of dispatch, while numpy ufuncs run it at C
-    speed with no compile at all (error-free transforms only need IEEE
+    ops per evaluation, which as an XLA CPU graph is slow to compile and
+    to dispatch, while numpy ufuncs run it at C speed with no compile (error-free transforms only need IEEE
     f64 arithmetic, which both provide)."""
     return jnp if isinstance(x, jax.Array) else np
 
@@ -291,7 +290,7 @@ def qd_exp(x: QD) -> QD:
     if xp is np:
         with np.errstate(over="ignore"):   # saturated lanes clamp below
             pow2 = np.ldexp(np.ones_like(x.e0), k.astype(np.int64))
-    else:                                # jnp.ldexp does not lower on TPU
+    else:
         from .dd import _exact_pow2
 
         pow2 = _exact_pow2(k)

@@ -2,8 +2,9 @@
 
 Maps the reference's MPI work decomposition: `share(first, last, own)`
 (default.f90:80-97) block-distributes TT bonds over ranks with the
-constraint nproc < d (dmrgg.f90:114-117).  On TPU the ranks are mesh
-devices along a single 'bond' axis and all exchanges ride ICI collectives.
+constraint nproc < d (dmrgg.f90:114-117).  Here the ranks are mesh
+devices along a single 'bond' axis and all exchanges are XLA collectives
+(NCCL over NVLink on a multi-GPU host).
 """
 
 from __future__ import annotations

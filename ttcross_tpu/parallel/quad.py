@@ -1,4 +1,4 @@
-"""Distributed TT contraction over a device mesh: the TPU rendering of
+"""Distributed TT contraction over a device mesh: the JAX rendering of
 dtt_quad / ztt_quad (dmrgg.f90:1261-1523).
 
 The reference contracts each rank's owned cores against the weights and
@@ -15,7 +15,8 @@ sequential collective contractions).  Here:
     blocks; it folds its slab locally and joins the mesh with the same
     log2-depth stride-doubling ppermute fold as parallel.engine.pvalue,
   * complex weights run as explicit (re, im) PAIR arithmetic — two real
-    matmuls per step (TPU has no complex dtype), and a whole FAMILY of K
+    matmuls per step (a form shaped for the first target, without complex dtypes),
+    and a whole FAMILY of K
     weight sets (the chf driver's 32 Fourier tensors) contracts in ONE
     collective call with a leading K axis instead of K sequential
     collectives.

@@ -6,7 +6,7 @@ Maps dtt_ort (tt.f90:130-198), dtt_svd (tt.f90:307-368), dtt_svd0
 These routines change bond ranks, so they run eagerly (shapes are data-
 dependent) — exactly like the reference, where rounding is a local
 single-process operation outside the distributed hot loop.  The dense
-factorizations (QR / SVD) lower to XLA's MXU-backed kernels.
+factorizations (QR / SVD) lower to XLA's library kernels.
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ def orthogonalize(t: TT) -> TT:
     left-orthogonal and all cores share a common scale factor.
 
     Runs eagerly (rank shapes change); the scalar log/exp norm bookkeeping
-    stays on host in full f64 (0-d device transcendentals are low-precision
-    on some TPU platforms)."""
+    stays on host in full f64."""
     import math
 
     d = t.d

@@ -1,6 +1,6 @@
 """Tensor-train container.
 
-TPU-native re-design of the reference `dtt`/`ztt` types (tt.f90:18-52): instead
+JAX re-design of the reference `dtt`/`ztt` types (tt.f90:18-52): instead
 of Fortran pointer-wrapped ragged cores, a TT is an immutable JAX pytree whose
 cores are a tuple of arrays with static shapes ``(r[c], n[c], r[c+1])``.  One
 container serves every dtype tier (f32 / f64 / complex64 / complex128), which

@@ -2,7 +2,7 @@
 
 Maps nan.f90 (portable NaN detection used to catch broken LAPACK,
 ort.f90:58) and the allocation-size audit dtt_memchk (tt.f90:836-877).
-On TPU these are debug utilities; inside jit use `jax.debug` or checkify.
+On the device these are debug utilities; inside jit use `jax.debug` or checkify.
 """
 
 from __future__ import annotations
